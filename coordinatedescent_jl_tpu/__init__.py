@@ -1,4 +1,4 @@
-"""tpu-coordinate-descent: a TPU-native (JAX/XLA/Pallas/pjit) framework for
+"""tpu-coordinate-descent: a JAX (XLA/shard_map) framework for
 proximal coordinate descent on L1- and weighted-L1-penalized smooth losses.
 
 Built from scratch against the capability surface of the Julia reference

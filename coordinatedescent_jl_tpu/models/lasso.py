@@ -1,6 +1,6 @@
 """Estimator APIs: Lasso, Sqrt-Lasso, Scaled-Lasso, Feasible Lasso.
 
-TPU-native equivalents of reference ``src/lasso.jl``:
+JAX equivalents of reference ``src/lasso.jl``:
 
 - ``lasso``          — lasso.jl:26-53 (plain + weighted)
 - ``sqrt_lasso``     — lasso.jl:62-98
@@ -242,7 +242,7 @@ def _feasible_lasso_core(X, y, lam0, beta0, key, opts: IterLassoOptions,
                          "'screening' | 'init_std' | 'warm_start'")
     # Γ = sqrt(mean((X_ij e_i)²)) (lasso.jl:179) — from the blocked
     # layout so the loading rounds never keep X-shaped temps live
-    # (helpers.get_loadings_blocked; raw-X form OOMs a v5e at 10K×100K)
+    # (helpers.get_loadings_blocked; the raw-X form doubles peak memory)
     p = X.shape[1]
     gam = get_loadings_blocked(prob.Xb, r, p)
 

@@ -1,6 +1,6 @@
-"""Core TPU block-coordinate-descent engine.
+"""Core block-coordinate-descent engine.
 
-This is the TPU-native re-design of the reference driver
+This is the accelerator-oriented re-design of the reference driver
 (``src/coordinate_descent.jl:1-149``) plus the per-coordinate update rules of
 the four losses (``src/cd_differentiable_function.jl``).  The reference's hot
 loop is inherently sequential: each scalar coordinate update mutates the
@@ -12,8 +12,8 @@ transliterating that, the engine here:
    block visit is one contiguous dynamic-index load.
 
 2. Recovers **exact sequential CD semantics inside a block** via the Gram
-   recursion: with ``K = Xw_blk' X_blk`` (one MXU matmul, computed on the fly
-   — data is already on-chip) and ``c = Xw_blk' r``, updating coordinate
+   recursion: with ``K = Xw_blk' X_blk`` (one matmul, cached per problem
+   or computed on the fly) and ``c = Xw_blk' r``, updating coordinate
    ``i`` by ``h`` implies ``c ← c − K[:, i] h``, which is exactly what the
    reference's per-coordinate residual refresh
    (cd_differentiable_function.jl:107-109) does to the gradients of the
@@ -23,7 +23,7 @@ transliterating that, the engine here:
 
 3. Replaces the reference's sequential *full pass*
    (coordinate_descent.jl:76-82) with a **vectorized KKT sweep**: one big
-   matvec ``c = Xw' r`` on the MXU gives every coordinate's Jacobi-style
+   matvec ``c = Xw' r`` gives every coordinate's Jacobi-style
    potential displacement ``h_pot`` at once; blocks containing violations are
    (re)activated.  Convergence is declared exactly like the reference —
    two consecutive converged passes, the confirming one being a full pass
@@ -60,10 +60,10 @@ from .losses import (
 from .prox import ProxL1, ProxL1Group, ProxZero, as_l1, soft_threshold
 from ..utils.options import CDOptions, resolve_extrapolate
 
-# CD convergence hinges on accurate coordinate gradients: on TPU the default
-# f32 matmul precision lowers to bf16 MXU passes (~1e-3 relative error),
-# which silently caps the achievable KKT residual.  Every solver-critical
-# contraction therefore pins HIGHEST precision (full-f32 MXU accumulation).
+# CD convergence hinges on accurate coordinate gradients: an accelerator's
+# default f32 matmul precision may round operands to TF32 or bf16 (~1e-3
+# relative error), which silently caps the achievable KKT residual.  Every
+# solver-critical contraction therefore pins HIGHEST precision (full f32).
 _PREC = lax.Precision.HIGHEST
 
 
@@ -246,7 +246,7 @@ def _gram_mode(kind, opts: CDOptions, nb: int, B: int, dtype=None) -> bool:
 
 
 def _block_grams(Xwb, Xb):
-    """All per-block Grams ``K_b = Xw_b' X_b`` in one batched MXU contraction
+    """All per-block Grams ``K_b = Xw_b' X_b`` in one batched contraction
     (the one-time build that removes half of every visit's FLOPs)."""
     return jnp.einsum("bnk,bnl->bkl", Xwb, Xb, precision=_PREC)
 
@@ -340,51 +340,88 @@ def _visit_block(kind, K, beta_b, lamw_b, lam0, c, rsqr, n_scale,
     return beta_b, rsqr, maxh
 
 
-def _pallas_mode(kind, opts: CDOptions, prob: BlockedProblem):
-    """Static dispatch decision for the fused Pallas pass.
+def _active_first_order(active, border):
+    """Visit order of one active pass: the active blocks first, in
+    ``border`` (possibly permuted) order, then the skipped blocks.
 
-    Returns ``(mode, interpret)`` with ``mode`` one of:
-
-    - ``"off"``: pure-XLA path.
-    - ``"on"``: Pallas unconditionally (explicit ``use_pallas=True``;
-      interpret mode when the default backend is not TPU — test-only).
-    - ``"tpu"``: decide at *lowering* time via ``lax.platform_dependent`` —
-      Pallas when the computation lowers for TPU, XLA otherwise.  This
-      tracks the device the computation is actually placed on rather than
-      ``jax.default_backend()``, so a solve explicitly committed to CPU
-      with a TPU present takes the XLA path (and vice versa).
-    """
-    if kind not in ("ls", "wls", "sqrt"):
-        return "off", False
-    if opts.use_pallas is False:
-        return "off", False
-    from .pallas_block import pallas_pass_fits
-
-    nb, B = prob.lamw.shape
-    n = prob.y.shape[0]
-    fits = pallas_pass_fits(n, B, nb, kind == "wls")
-    if opts.use_pallas is True:
-        on_tpu = jax.default_backend() == "tpu"
-        if on_tpu and not fits:
-            return "off", False
-        return "on", not on_tpu  # interpret mode off-TPU (test-only)
-    return ("tpu", False) if fits else ("off", False)
+    The block-granular form of the reference's ordered / random /
+    sparse-aware iterators (atom_iterator.jl:11-85): the pass loops over
+    the first ``n_active`` entries only, so its trip count is the active
+    set's size, not ``nb``.  Returns ``(order, n_active)``."""
+    keep = active[border]
+    # stable partition: active blocks first, preserving the visit order
+    idx = jnp.argsort(~keep, stable=True)
+    return border[idx], jnp.sum(keep).astype(jnp.int32)
 
 
-def _platform_dispatch(mode, pallas_fn, xla_fn):
-    """Run ``pallas_fn`` / ``xla_fn`` per the mode from ``_pallas_mode``.
-    Both thunks must return identical pytrees (shapes/dtypes)."""
-    if mode == "on":
-        return pallas_fn()
-    if mode == "tpu":
-        return lax.platform_dependent(tpu=pallas_fn, default=xla_fn)
-    return xla_fn()
+def _resolve_inner(kind, opts: Optional[CDOptions], dtype) -> str:
+    """Within-block solver of the active pass (``CDOptions.inner``).
+    Auto = ista for sub-f64 dtypes on the ls/wls/sqrt losses, exact
+    otherwise; quad always runs the exact scan."""
+    if opts is None or kind not in ("ls", "wls", "sqrt"):
+        return "exact"
+    if opts.inner == "auto":
+        return "ista" if jnp.dtype(dtype).itemsize < 8 else "exact"
+    return opts.inner
+
+
+def _block_ista(K, c, beta0, lamw, thr_scale, iters: int):
+    """Vectorized inexact block solve: ``iters`` FISTA steps on the block's
+    (weighted) LS + L1 subproblem with per-coordinate thresholds
+    ``thr_scale·λw`` (``thr_scale = n·λ0`` for ls/wls; ``λ0·‖r₀‖`` for the
+    sqrt-lasso MM majorization ``‖r‖ ≤ (‖r‖² + ‖r₀‖²)/(2‖r₀‖)`` — each
+    block visit then approximately minimizes a convex majorizer of the
+    true objective; with the FISTA acceleration individual visits are
+    only near-monotone, and final convergence is certified by the outer
+    KKT sweep as always).
+
+    Sequential scalar CD costs ``B`` dependent steps per block; this
+    replaces them with ``iters`` ``B×B`` matvecs: with ``L ≥ λmax(K)``
+    (Gershgorin row-sum bound), ``d ← soft(d + (c + K(β0 − d))/L;
+    n·λ0·λw/L)`` has the same fixed points as exact coordinate descent, so
+    the outer loop's KKT certificate (``_full_check``) guarantees the same
+    converged solution — only the trajectory differs, which the
+    reference's own config-invariance tests treat as equivalent
+    (SURVEY.md §4.3).  ``K`` is symmetric (``Xw'X`` with diagonal
+    weights).  Returns ``(d, maxh)``."""
+    dt = c.dtype
+    L = jnp.maximum(jnp.max(jnp.sum(jnp.abs(K), axis=0)), 1e-30)
+    thr = thr_scale * lamw / L
+    q0 = c + jnp.dot(beta0, K, precision=_PREC)
+
+    # FISTA momentum t_{k+1} = (1+√(1+4t_k²))/2 at plain-ISTA cost per
+    # step.  Unrolled: ``iters`` is small and static, and a rolled loop
+    # would add a device→host trip-count check per step on the GPU
+    def body(_, carry):
+        d, d_prev, t = carry
+        t_next = 0.5 * (1.0 + jnp.sqrt(1.0 + 4.0 * t * t))
+        yv = d + ((t - 1.0) / t_next) * (d - d_prev)
+        Ky = jnp.dot(yv, K, precision=_PREC)
+        d_new = soft_threshold(yv + (q0 - Ky) / L, thr)
+        return d_new, d, t_next
+
+    d, _, _ = lax.fori_loop(0, iters, body,
+                            (beta0, beta0, jnp.ones((), dt)), unroll=True)
+    # zero-snap epilogue: a finite FISTA budget leaves tiny nonzero "dust"
+    # on coordinates whose exact solo-optimum is 0.  The exact
+    # coordinate-wise zero condition given the others fixed is
+    # |a_k·d_k + q_k| ≤ thr_scale·λw_k (cd_differentiable_function.jl:
+    # 101-103 rearranged); snapping those to 0 keeps the active set honest
+    # and preserves the solver's exact-sparsity semantics
+    q = q0 - jnp.dot(d, K, precision=_PREC)
+    adiag = jnp.diagonal(K)
+    d = jnp.where(jnp.abs(adiag * d + q) <= thr_scale * lamw, 0.0, d)
+    # dead columns (zero curvature, e.g. padding) must not move
+    d = jnp.where(adiag > 0.0, d, beta0)
+    return d, jnp.max(jnp.abs(d - beta0))
 
 
 def _active_pass(kind, prob: BlockedProblem, st: CDState, lam0, n_scale,
                  randomize: bool, opts: Optional[CDOptions] = None):
     """One pass over the active blocks (reference's nonzero pass,
-    coordinate_descent.jl:94-110, at block granularity)."""
+    coordinate_descent.jl:94-110, at block granularity): per visited
+    block a Gram (cached or computed), the block gradient, the
+    within-block solve (``_resolve_inner``), and one residual matvec."""
     nb, B = prob.lamw.shape
     key, k1, k2 = jax.random.split(st.key, 3)
     if randomize:
@@ -393,99 +430,65 @@ def _active_pass(kind, prob: BlockedProblem, st: CDState, lam0, n_scale,
     else:
         border = jnp.arange(nb)
         corder = jnp.arange(B)
-
-    mode = "off"
-    interpret = False
-    if opts is not None:
-        mode, interpret = _pallas_mode(kind, opts, prob)
-
-    def pallas_pass():
-        from .pallas_block import fused_active_pass
-
-        inner = opts.inner
-        if inner == "auto":
-            # ista = vectorized inexact block solve (MM majorization
-            # for sqrt): same fixed points, KKT-certified; default for
-            # sub-f64 dtypes where exact reference trajectories are
-            # unattainable anyway
-            f32ish = jnp.dtype(st.beta.dtype).itemsize < 8
-            inner = "ista" if f32ish else "exact"
-        beta2, r2, maxh, rsqr2 = fused_active_pass(
-            prob, st.beta, st.r, st.active, lam0, n_scale, border,
-            corder, kind=kind, rsqr=st.rsqr, inner=inner,
-            iters=opts.block_iters, interpret=interpret)
-        active = jnp.any(beta2 != 0, axis=1)
-        return st._replace(beta=beta2, r=r2, rsqr=rsqr2, active=active,
-                           key=key), maxh
-
-    if mode != "off":
-        st2, maxh = _platform_dispatch(
-            mode, pallas_pass,
-            lambda: _xla_active_pass(kind, prob, st, lam0, n_scale, border,
-                                     corder, key))
-    else:
-        st2, maxh = _xla_active_pass(kind, prob, st, lam0, n_scale, border,
-                                     corder, key)
-    # every cached gradient block goes stale by at most ‖Δr‖ (triangle
-    # inequality) — the lifted form of "the pass invalidates c_fresh"
-    dnorm = jnp.sqrt(jnp.sum((st2.r - st.r) ** 2))
-    return st2._replace(drift=st.drift + dnorm), maxh
-
-
-def _xla_active_pass(kind, prob: BlockedProblem, st: CDState, lam0, n_scale,
-                     border, corder, key):
-    """Pure-XLA active pass: per-block Gram matmul + sequential in-block
-    scan + residual matvec (the fallback / reference-exact path)."""
-    nb, B = prob.lamw.shape
+    inner = _resolve_inner(kind, opts, st.beta.dtype)
+    iters = opts.block_iters if opts is not None else 0
+    order, n_active = _active_first_order(st.active, border)
 
     def body(t, carry):
         beta, r, rsqr, maxh = carry
-        b = border[t]
-
-        def do(args):
-            beta, r, rsqr, maxh = args
-            G = prob.Xb[b]
-            if kind == "quad":
-                K = lax.dynamic_slice(G, (b * B, 0), (B, B))
-                rb = lax.dynamic_slice(r, (b * B,), (B,))
-                qb = lax.dynamic_slice(prob.q, (b * B,), (B,))
-                c = -(rb + qb)
+        b = order[t]
+        G = prob.Xb[b]
+        if kind == "quad":
+            K = lax.dynamic_slice(G, (b * B, 0), (B, B))
+            rb = lax.dynamic_slice(r, (b * B,), (B,))
+            qb = lax.dynamic_slice(prob.q, (b * B,), (B,))
+            c = -(rb + qb)
+        else:
+            Gw = prob.Xwb[b]
+            if prob.Kb is not None:
+                K = prob.Kb[b]
             else:
-                Gw = prob.Xwb[b]
-                if prob.Kb is not None:
-                    K = prob.Kb[b]
-                else:
-                    K = jnp.dot(Gw.T, G, preferred_element_type=G.dtype,
-                                precision=_PREC)
-                c = jnp.dot(Gw.T, r, precision=_PREC)
-            bb = beta[b]
+                K = jnp.dot(Gw.T, G, preferred_element_type=G.dtype,
+                            precision=_PREC)
+            c = jnp.dot(Gw.T, r, precision=_PREC)
+        bb = beta[b]
+        if inner == "ista":
+            if kind == "sqrt":
+                # MM majorizer threshold λ0·‖r₀‖ at the current block
+                ts = lam0 * jnp.sqrt(jnp.maximum(rsqr, 1e-30))
+            else:
+                ts = n_scale * lam0
+            bb2, mh = _block_ista(K, c, bb, prob.lamw[b], ts, iters)
+            rsqr2 = rsqr
+        else:
             bb2, rsqr2, mh = _visit_block(
-                kind, K, bb, prob.lamw[b], lam0, c, rsqr, n_scale,
-                corder)
-            h = bb2 - bb
-            if kind == "quad":
-                # Ax update (cd_diff…jl:344-346)
-                r2 = r + jnp.dot(G, h, precision=_PREC)
-            else:
-                # residual update (:107-109)
-                r2 = r - jnp.dot(G, h, precision=_PREC)
-            beta = beta.at[b].set(bb2)
-            return beta, r2, rsqr2, jnp.maximum(maxh, mh)
-
-        return lax.cond(st.active[b], do, lambda a: a,
-                        (beta, r, rsqr, maxh))
+                kind, K, bb, prob.lamw[b], lam0, c, rsqr, n_scale, corder)
+        h = bb2 - bb
+        if kind == "quad":
+            # Ax update (cd_diff…jl:344-346)
+            r2 = r + jnp.dot(G, h, precision=_PREC)
+        else:
+            # residual update (:107-109)
+            r2 = r - jnp.dot(G, h, precision=_PREC)
+        if kind == "sqrt" and inner == "ista":
+            # exact ‖r‖² refresh for the next block's majorizer
+            rsqr2 = jnp.dot(r2, r2, precision=_PREC)
+        return beta.at[b].set(bb2), r2, rsqr2, jnp.maximum(maxh, mh)
 
     zero = jnp.zeros((), st.beta.dtype)
     beta, r, rsqr, maxh = lax.fori_loop(
-        0, nb, body, (st.beta, st.r, st.rsqr, zero))
+        0, n_active, body, (st.beta, st.r, st.rsqr, zero))
     # dropzeros! (coordinate_descent.jl:108) → mask refresh
     active = jnp.any(beta != 0, axis=1)
-    return st._replace(beta=beta, r=r, rsqr=rsqr, active=active,
-                       key=key), maxh
+    # every cached gradient block goes stale by at most ‖Δr‖ (triangle
+    # inequality) — the lifted form of "the pass invalidates c_fresh"
+    dnorm = jnp.sqrt(jnp.sum((r - st.r) ** 2))
+    return st._replace(beta=beta, r=r, rsqr=rsqr, active=active, key=key,
+                       drift=st.drift + dnorm), maxh
 
 
 def _full_gradient_c(kind, prob: BlockedProblem, r):
-    """Blocked ``c`` for every coordinate at once (one MXU matvec)."""
+    """Blocked ``c`` for every coordinate at once (one batched matvec)."""
     if kind == "quad":
         nb, B = prob.lamw.shape
         return -(r.reshape(nb, B) + prob.q.reshape(nb, B))
@@ -505,37 +508,9 @@ def _potential_steps(kind, prob, beta, c, rsqr, lam0, n_scale):
     return h
 
 
-def _habs_reduce_core(h, bound, use_bound2, cand2, beta, xwnorm, rn2,
-                      opt_tol):
-    """Raw-array f32 tail of the full check: bound substitution for
-    certified-stale blocks, screened-block zeroing, the per-coordinate
-    noise floor (``noise_floor_mask`` + ``_step_noise`` inlined — the
-    fused path is gated on f32, where both always apply), and the
-    maxH / block-activation reductions.  Shared by the plain XLA check
-    and the fused Pallas check kernel (ops/pallas_check.py).
-
-    ``use_bound2`` / ``cand2`` are ``(nb, 1)`` bool; returns
-    ``(maxh scalar, active (nb, 1) bool)``."""
-    dt = beta.dtype
-    eps = jnp.finfo(dt).eps
-    habs = jnp.abs(h)
-    habs = jnp.where(use_bound2, bound, habs)
-    habs = jnp.where(cand2, habs, 0.0)
-    sn = 4.0 * eps * jnp.sqrt(rn2) / jnp.maximum(xwnorm, 1e-30)
-    floor = 2.0 * eps * jnp.abs(beta) + sn
-    habs = jnp.where(habs <= floor, 0.0, habs)
-    maxh = jnp.max(habs)
-    viol2 = jnp.max(jnp.where(habs >= opt_tol, 1.0, 0.0),
-                    axis=1, keepdims=True) > 0
-    nz2 = jnp.max(jnp.where(beta != 0, 1.0, 0.0),
-                  axis=1, keepdims=True) > 0
-    return maxh, nz2 | viol2
-
-
 def _gap_safe_core(c, beta, drift2, adiag, lamw, valid, lam0, n_scale,
                    rn2, ry):
-    """Raw-array core of the gap-safe screen (shared by the plain XLA check
-    and the fused Pallas check kernel, ops/pallas_check.py).  ``drift2`` is
+    """Raw-array core of the gap-safe screen.  ``drift2`` is
     the per-block drift broadcast to ``(nb, 1)``; ``ry = r'y`` is computed
     by the caller.  Returns the per-block candidate mask as ``(nb, 1)``."""
     dt = beta.dtype
@@ -631,10 +606,10 @@ def _stale_certified(kind, prob: BlockedProblem, st: CDState, rsqr, lam0,
 
 def _stale_core_ls(c, beta, drift2, adiag, lamw, valid, xwnorm, lam0,
                    n_scale, opt_tol):
-    """Raw-array ls/wls core of ``_stale_certified`` (shared with the fused
-    Pallas check kernel).  Returns ``(certified (nb,1), bound (nb,B),
-    h_stale (nb,B))`` — ``h_stale`` is the potential step evaluated with the
-    *cached* gradient, which IS the exact step for unrefreshed blocks."""
+    """Raw-array ls/wls core of ``_stale_certified``.  Returns
+    ``(certified (nb,1), bound (nb,B), h_stale (nb,B))`` — ``h_stale`` is
+    the potential step evaluated with the *cached* gradient, which IS the
+    exact step for unrefreshed blocks."""
     dt = beta.dtype
     dball = drift2 * (1.0 + 64.0 * jnp.finfo(dt).eps)
     e_c = xwnorm * dball                            # |c_exact − c_stale| ≤
@@ -648,144 +623,14 @@ def _stale_core_ls(c, beta, drift2, adiag, lamw, valid, xwnorm, lam0,
     return certified2, bound, h_stale
 
 
-def _refresh_c(kind, prob: BlockedProblem, st: CDState, need, mode,
-               interpret):
-    """Refresh the cached gradient ``c`` for the ``need`` blocks (the only
-    X traffic a full check generates).  Dense blocked einsum when ≥80% of
-    blocks refresh (streams at ~754 GB/s on-chip vs the scalar-prefetch
-    restricted kernel's ~558 — e.g. a λ-path point's scheduling check,
-    where the warm-start displacement voids every drift certificate);
-    otherwise the restricted Pallas sweep reads only the needed blocks."""
-
-    def dense_c():
-        return jnp.where(need[:, None],
-                         _full_gradient_c(kind, prob, st.r), st.c)
-
-    if mode == "off":
-        return dense_c()
-    from .pallas_block import restricted_gradient_sweep
-
-    def sparse_c():
-        return _platform_dispatch(
-            mode,
-            lambda: restricted_gradient_sweep(
-                prob.Xwb, st.r, need, st.c, interpret=interpret),
-            dense_c)
-
-    frac = jnp.mean(need.astype(jnp.float32))
-    return lax.cond(frac > 0.8, dense_c, sparse_c)
-
-
-def _fused_full_check(kind, prob: BlockedProblem, st: CDState, lam0,
-                      n_scale, opt_tol, rsqr, screen, mode, interpret,
-                      count_x):
-    """Fused-kernel execution of the ls/wls full check (f32/TPU fast path).
-
-    The plain check's screening + stale-certification + potential-step +
-    noise-floor math is ~100 small ``(nb, B)`` elementwise/reduce ops —
-    pure op latency (~5-10 ms/check at the benchmark shape, over half the
-    sequential λ-path scan floor by the PERF.md round-5 decomposition).
-    Two single-grid-step Pallas kernels (ops/pallas_check.py) collapse it:
-
-    - **phase A** evaluates the whole no-refresh check in one kernel —
-      gap-safe screen, drift-ball certification, the potential steps with
-      the cached gradient (exact for unrefreshed blocks), noise floor, and
-      the maxH/activation reductions — and emits the ``need`` refresh mask;
-    - when nothing needs a refresh (the common confirming check) that ONE
-      kernel was the entire check;
-    - otherwise the existing restricted/dense gradient sweep refreshes
-      ``c`` and **phase B** re-evaluates the steps with the fresh gradient
-      in a second kernel.
-
-    Both kernel bodies call the SAME raw-array cores as the plain path
-    (``_gap_safe_core`` / ``_stale_core_ls`` / ``_habs_reduce_core``), so
-    the fused and plain checks are formula-identical; `_platform_dispatch`
-    lowers the plain path on CPU.  Decisions stay certificate-exact
-    (drift-ball conservative) either way."""
-    from .pallas_check import check_phase_a, check_phase_b
-
-    nb, B = prob.lamw.shape
-    dt = st.beta.dtype
-    rn2 = jnp.dot(st.r, st.r, precision=_PREC)
-    ry = (jnp.dot(st.r, prob.y, precision=_PREC) if screen
-          else jnp.zeros((), dt))
-    # scalars ride in one lane-padded VMEM row (vmap-friendly; see
-    # pallas_check module doc)
-    scal = jnp.pad(jnp.stack([jnp.asarray(lam0, dt),
-                              jnp.asarray(n_scale, dt),
-                              rn2, ry,
-                              jnp.asarray(opt_tol, dt)]).reshape(1, 5),
-                   ((0, 0), (0, 123)))
-    validf = prob.valid.astype(dt)
-    drift2 = st.drift[:, None]
-
-    def a_plain():
-        cand2 = (_gap_safe_core(st.c, st.beta, drift2, prob.adiag,
-                                prob.lamw, prob.valid, lam0, n_scale,
-                                rn2, ry)
-                 if screen else jnp.ones((nb, 1), bool))
-        certified2, bound, h_stale = _stale_core_ls(
-            st.c, st.beta, drift2, prob.adiag, prob.lamw, prob.valid,
-            prob.xwnorm, lam0, n_scale, opt_tol)
-        stale2 = drift2 > 0
-        need2 = cand2 & stale2 & ~certified2
-        ub2 = stale2 & certified2
-        maxh0, active2 = _habs_reduce_core(
-            h_stale, bound, ub2, cand2, st.beta, prob.xwnorm, rn2, opt_tol)
-        return (need2.astype(dt), ub2.astype(dt), cand2.astype(dt),
-                bound, maxh0, active2.astype(dt))
-
-    def a_pallas():
-        return check_phase_a(st.c, st.beta, drift2, prob.adiag, prob.lamw,
-                             validf, prob.xwnorm, scal, screen=screen,
-                             interpret=interpret)
-
-    needf, ubf, candf, bound, maxh0, activef0 = _platform_dispatch(
-        mode, a_pallas, a_plain)
-    need = needf[:, 0] > 0
-
-    def noref(_):
-        return st.c, maxh0, activef0
-
-    def ref(_):
-        c_new = _refresh_c(kind, prob, st, need, mode, interpret)
-
-        def b_plain():
-            h = jnp.where(prob.valid,
-                          _ls_candidate(st.beta, c_new, prob.adiag, lam0,
-                                        prob.lamw, n_scale) - st.beta,
-                          0.0)
-            maxh1, active2 = _habs_reduce_core(
-                h, bound, ubf > 0, candf > 0, st.beta, prob.xwnorm, rn2,
-                opt_tol)
-            return maxh1, active2.astype(dt)
-
-        def b_pallas():
-            return check_phase_b(c_new, st.beta, bound, ubf, candf,
-                                 prob.adiag, prob.lamw, validf,
-                                 prob.xwnorm, scal, interpret=interpret)
-
-        maxh1, activef1 = _platform_dispatch(mode, b_pallas, b_plain)
-        return c_new, maxh1, activef1
-
-    c, maxh, activef = lax.cond(jnp.any(need), ref, noref, None)
-    drift_new = jnp.where(need, 0.0, st.drift)
-    out_st = st._replace(rsqr=rsqr, active=activef[:, 0] > 0, c=c,
-                         drift=drift_new)
-    if count_x:
-        xe = (jnp.sum(need).astype(jnp.float32)
-              * jnp.float32(float(prob.y.shape[0]) * B))
-        return out_st, maxh, xe
-    return out_st, maxh
-
-
 def _full_check(kind, prob: BlockedProblem, st: CDState, lam0, n_scale,
                 opt_tol, opts: Optional[CDOptions] = None,
                 count_x: bool = False):
     """Vectorized full pass: KKT sweep + (re)activation of violating blocks
     (replaces the reference's sequential full pass, SURVEY.md §7).
 
-    Three mechanisms keep this far below one O(n·p) X read per check:
+    Three mechanisms decide which blocks' cached gradient ``c`` must be
+    refreshed; when none must, the check reads no X at all:
 
     - **cached gradients**: blocks with ``drift == 0`` have an exact cached
       ``c`` (e.g. every block right after a confirming sweep — the cache is
@@ -793,12 +638,16 @@ def _full_check(kind, prob: BlockedProblem, st: CDState, lam0, n_scale,
     - **drift-ball certification** (``_stale_certified``): stale blocks whose
       conservative step bound is already < tol are accepted without a
       refresh — after a near-converged active pass this certifies almost
-      every block, so the confirming sweep reads only the blocks whose
-      margin the pass actually consumed;
+      every block;
     - **gap-safe screening** (ls only, ``opts.screen``): blocks whose every
-      coordinate is provably zero at this λ's optimum are neither swept nor
-      checked — the sweep reads only candidate blocks, and convergence is
-      certified by restricted-KKT + the safe rule.
+      coordinate is provably zero at this λ's optimum are neither refreshed
+      nor checked, and convergence is certified by restricted-KKT + the
+      safe rule.
+
+    A refresh is one dense blocked einsum over the whole design (which
+    blocks need it is decided on the device, and XLA's shapes are static);
+    only the needed blocks take its rows, the others keep their cached
+    ``c`` and drift.
     """
     if kind == "sqrt":
         # refresh exact ‖r‖² (drift control) — pinned like every
@@ -821,19 +670,6 @@ def _full_check(kind, prob: BlockedProblem, st: CDState, lam0, n_scale,
     else:
         screen = (kind == "ls" and opts is not None
                   and opts.screen is not False)
-        mode, interpret = (_pallas_mode(kind, opts, prob)
-                           if opts is not None else ("off", False))
-
-        from .pallas_check import fused_check_fits
-        fuse = (kind in ("ls", "wls") and mode != "off"
-                and opts.fuse_check is not False
-                and st.beta.dtype == jnp.float32
-                and fused_check_fits(nb, B))
-        if fuse:
-            return _fused_full_check(kind, prob, st, lam0, n_scale,
-                                     opt_tol, rsqr, screen, mode,
-                                     interpret, count_x)
-
         if screen:
             rn2 = jnp.dot(st.r, st.r, precision=_PREC)
             cand = _gap_safe_candidates(prob, st, lam0, n_scale, rn2)
@@ -846,8 +682,9 @@ def _full_check(kind, prob: BlockedProblem, st: CDState, lam0, n_scale,
         use_bound = stale & certified      # keep stale c; report the bound
 
         c = lax.cond(jnp.any(need),
-                     lambda: _refresh_c(kind, prob, st, need, mode,
-                                        interpret),
+                     lambda: jnp.where(need[:, None],
+                                       _full_gradient_c(kind, prob, st.r),
+                                       st.c),
                      lambda: st.c)
         drift_new = jnp.where(need, 0.0, st.drift)
 
@@ -868,14 +705,13 @@ def _full_check(kind, prob: BlockedProblem, st: CDState, lam0, n_scale,
     active = jnp.any(st.beta != 0, axis=1) | viol
     out_st = st._replace(rsqr=rsqr, active=active, c=c, drift=drift_new)
     if count_x:
-        # only the REFRESHED blocks physically read X: cached-exact,
-        # drift-certified, and screened blocks are all served from the
-        # cached gradient (the whole point of the three mechanisms above)
+        # a check that refreshes any block reads the whole design once
+        # (the dense einsum); one that refreshes none reads no X
         if kind == "quad":
             xe = jnp.float32(0.0)
         else:
-            xe = (jnp.sum(need).astype(jnp.float32)
-                  * jnp.float32(float(prob.y.shape[0]) * B))
+            xe = (jnp.any(need).astype(jnp.float32)
+                  * jnp.float32(float(prob.y.shape[0]) * nb * B))
         return out_st, maxh, xe
     return out_st, maxh
 
@@ -889,10 +725,9 @@ def _compact_mode(kind, opts: CDOptions, prob: BlockedProblem, dtype) -> int:
     """Static dispatch for working-set compaction: returns the number of
     working-set blocks ``nc`` (0 = off).
 
-    A scattered support leaves most lanes of each ``B``-wide block idle —
-    and on TPU the waste is physical: HBM serves full (8, 128) tiles, so an
-    active pass over ``k`` scattered coordinates streams ``k`` whole column
-    blocks for ``k`` useful columns.  Compaction gathers the
+    A scattered support leaves most lanes of each ``B``-wide block idle:
+    an active pass over ``k`` scattered coordinates streams ``k`` whole
+    column blocks for ``k`` useful columns.  Compaction gathers the
     ``compact_size`` highest-priority coordinates into a dense ``(n, C)``
     subproblem once, then iterates on that — per-pass traffic scales with
     the support, not with how it is scattered.
@@ -1059,8 +894,9 @@ def _compact_pass(kind, prob: BlockedProblem, st: CDState, lam0, n_scale,
     priority, the gathered problem is an *exact* restriction (all excluded
     coordinates are zero, so the shared residual is consistent).
 
-    The expensive part is the gather itself: scattered picks touch whole
-    HBM tiles, so a fresh gather costs about as much as a full active pass.
+    The expensive part is the gather itself: scattered picks read strided
+    columns of the blocked design, so a fresh gather costs a sizeable
+    fraction of a full active pass.
     It is therefore *cached* and amortized: as long as the cached index set
     still covers the support and every (stale-bound) KKT violation, the
     round reuses the cached dense columns and reads NO large X data at all

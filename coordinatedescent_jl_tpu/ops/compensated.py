@@ -1,14 +1,12 @@
-"""Compensated (float64-accumulated) certification on TPU.
+"""Compensated (float64-accumulated) certification.
 
 SURVEY §7 hard-part (d): the BASELINE metric is time-to-1e-7 duality gap,
 but f32 contractions measure the gap with ~1e-7 relative error themselves
-(measured on-chip: a plain HIGHEST-precision ``X'r`` GEMV at n=10K has
-1.3e-7..3e-7 relative error — exactly the target scale), so both the
-certificate and the solve floor were accumulation-bound.  This module
-provides measurement-grade f64 building blocks that work WITHIN the TPU's
-f64-emulation constraints (XLA emulates f64 by decomposing each operand
-into multiple f32 words — a full-design f64 einsum at 10K×100K would
-materialize an f32[8, n, p] = 32 GB intermediate and OOM, measured):
+(a plain HIGHEST-precision f32 ``X'r`` GEMV at n=10K carries ~1e-7
+relative error — exactly the target scale), so both the certificate and
+the solve floor were accumulation-bound.  This module provides
+measurement-grade f64 building blocks that never materialize an f64 copy
+of the full design (a 10K×100K design is 4 GB in f32, 8 GB in f64):
 
 - ``grad_f64``      — ``X'r`` with true f64 accumulation, column-chunked
   under ``lax.map`` so the 8× emulation blowup applies to one (n, chunk)
@@ -81,7 +79,7 @@ def grad_f64(X, r64, col_chunk: int = 4096):
 def _grad32_and_mag(X, r32):
     """One fast pass: the f32 gradient estimate ``X' r32`` and the
     magnitude sweep ``|X|' |r32|`` that feeds its rigorous error bound.
-    Two HIGHEST-pinned f32 matvecs — MXU speed, no f64 emulation."""
+    Two HIGHEST-pinned f32 matvecs at f32 speed."""
     g32 = jnp.einsum("nj,n->j", X, r32, precision=_PREC)
     mag = jnp.einsum("nj,n->j", jnp.abs(X), jnp.abs(r32), precision=_PREC)
     return g32, mag
@@ -377,7 +375,7 @@ def lasso_duality_gap_compensated(X, y, beta, lam0, weights=None, *,
                        jnp.asarray(beta_s))
     # hybrid sweep: exact f64 on the near-max edge set, bounded-f32
     # elsewhere — the ratio/violation consumers see exact values (see
-    # grad_f64_certified; pure f64 emulation costs ~6× more on TPU)
+    # grad_f64_certified; cheaper than a full f64 sweep)
     g_np = grad_f64_certified(X, r64, n * float(lam0) * w,
                               col_chunk=min(col_chunk, p), as_numpy=True)
     return fenchel_gap_f64(np.asarray(r64), g_np, beta_np,

@@ -1,6 +1,6 @@
 """Group-coordinate (atom) descent engine.
 
-TPU-native implementation of the reference driver's ``AtomIterate``
+JAX implementation of the reference driver's ``AtomIterate``
 acceptance (``src/coordinate_descent.jl:8``): ProximalBase's
 ``AtomIterate`` splits the iterate into equal-size atoms and ``cdprox!``
 applies the ℓ2 prox per atom, i.e. the solved problem is the group Lasso
@@ -20,7 +20,7 @@ wastes 128−G lanes and serializes p/G tiny steps) but **blocks of
 - A visit runs ``block_iters`` FISTA steps of proximal gradient on the
   block's joint subproblem with the group-separable prox
   (``group_soft_threshold`` over the ``(k, G)`` view) — the group analogue
-  of ``pallas_block._block_ista`` — followed by an exact per-group
+  of ``block_cd._block_ista`` — followed by an exact per-group
   zero-snap so finite inner budgets keep exact group sparsity.  Inexact
   visits are sound exactly as in the scalar engine: convergence is only
   declared by the order-independent group-KKT fixed-point sweep.
@@ -121,7 +121,7 @@ def _group_prox(z, thr, k: int, G: int):
 def _block_visit(K, c0, beta0, L, thr, k: int, G: int, iters: int):
     """``iters`` FISTA proximal-gradient steps on one block's joint
     subproblem with the group-separable prox (the group analogue of
-    pallas_block._block_ista).  Entering gradient ``c0 = X_b'r``; the
+    block_cd._block_ista).  Entering gradient ``c0 = X_b'r``; the
     running gradient at iterate ``b`` is ``c0 − K(b − beta0)`` (Gram
     recursion — no X reads).  ``thr`` is the per-group prox level / L.
 

@@ -1,6 +1,6 @@
 """Smooth-loss specifications for the coordinate-descent driver.
 
-TPU-native re-design of the reference's ``CoordinateDifferentiableFunction``
+JAX re-design of the reference's ``CoordinateDifferentiableFunction``
 trait (reference ``src/cd_differentiable_function.jl:1-35``).  The reference
 models a loss as a mutable object with ``initialize!`` / ``gradient`` /
 ``descendCoordinate!`` methods that update an internal residual vector one
@@ -30,9 +30,9 @@ from typing import NamedTuple
 import jax.numpy as jnp
 from jax import lax
 
-# Same invariant as the solver (block_cd.py): on TPU the default f32 matmul
-# precision lowers to bf16, corrupting gradients/objectives at ~1e-3 relative
-# — every contraction here pins full-f32 MXU accumulation.
+# Same invariant as the solver (block_cd.py): an accelerator's default f32
+# matmul precision may round to TF32/bf16, corrupting gradients/objectives at
+# ~1e-3 relative — every contraction here pins full-f32 precision.
 _PREC = lax.Precision.HIGHEST
 
 

@@ -1,6 +1,6 @@
 """Proximal operators for separable penalties.
 
-TPU-native re-design of the reference's ``ProximalBase.ProxL1`` /
+JAX re-design of the reference's ``ProximalBase.ProxL1`` /
 ``ProxZero`` contract (inferred from call sites, see SURVEY.md §1 L0):
 
 - ``ProxL1(lam0)`` — plain L1 with scalar level ``lam0``.
@@ -69,7 +69,7 @@ class ProxL1Group(NamedTuple):
     """Group-L1 penalty ``Σ_g lam0 · weights_g · ‖x_g‖₂`` over consecutive
     equal-size groups of ``group_size`` coordinates.
 
-    The TPU analogue of the reference driver's ``AtomIterate`` support
+    The blocked analogue of the reference driver's ``AtomIterate`` support
     (coordinate_descent.jl:8, test/atom_iterator.jl:32-85): ProximalBase's
     ``AtomIterate`` splits the iterate into equal atoms and ``cdprox!``
     applies the ℓ2 prox per atom.  ``group_size`` is static (it shapes the

@@ -9,7 +9,7 @@ the acceptance is driver-level plumbing for downstream estimators (precision
 matrices, covariance thresholding) — and its iterator tests pin the packed
 coordinate numbering (test/atom_iterator.jl:31-48, :69-85).
 
-TPU-native design: the iterate is a dense packed vector (static shape
+Design: the iterate is a dense packed vector (static shape
 ``q``), solved by the ordinary block engine — the packed representation is
 what makes a symmetric problem lane-dense (no wasted upper-triangle lanes,
 no scatter/gather of matrix halves inside the hot loop).  Pack/unpack are

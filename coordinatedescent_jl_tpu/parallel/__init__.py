@@ -1,9 +1,9 @@
 """Multi-chip parallel layer: feature-sharded CD + sharded scenario batches.
 
 The reference has no parallelism of any kind (SURVEY.md §2.5); this package
-provides the TPU-native scaling story (SURVEY.md §5.7-5.8): ``shard_map``
+provides the multi-device scaling story (SURVEY.md §5.7-5.8): ``shard_map``
 over a ``jax.sharding.Mesh`` with XLA collectives (psum of residual
-corrections over ICI, gathered max convergence certificates, consensus σ),
+corrections, pmax convergence certificates, consensus σ),
 plus
 batch-axis sharding of the embarrassingly-parallel scenario loops.
 """

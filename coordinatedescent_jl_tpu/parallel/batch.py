@@ -138,9 +138,9 @@ def lasso_grid_sharded(X, y, lams, mesh: Mesh,
     are sharded over ``mesh[feature_axis]`` with psum residual merging
     (``parallel.grid_mesh`` builds the right mesh).  This composes the two
     axes the reference loops serially (the λ loop, lasso.jl:250-257, and
-    the per-coordinate sweep over all of p) into one pod-shaped program:
-    scenario parallelism on the outer mesh axis, long-axis feature
-    scaling on the ICI-contiguous inner axis (SURVEY.md §5.7-5.8).
+    the per-coordinate sweep over all of p) into one program: scenario
+    parallelism on the outer mesh axis, long-axis feature scaling on the
+    inner axis (SURVEY.md §5.7-5.8).
 
     Scenarios are cold solves (independent — order-free, unlike the
     warm-started ``lasso_path_sharded`` scan); per the reference's own
@@ -263,8 +263,8 @@ def _make_lvocv_l1_batch(degree: int, kernel_type, opts: CDOptions,
     def local_fn(X, z, y, lam0, key, hs_local):
         n = X.shape[0]
         if cv_batch:
-            # batched held-out lanes per bandwidth (the 32× on-chip
-            # lever, models/varying_coefficient.py); PER-LANE errors and
+            # batched held-out lanes per bandwidth (the batched
+            # LOO-CV lever, models/varying_coefficient.py); PER-LANE errors and
             # escape masks ride back so the wrapper can both recompute
             # uncertified bandwidths AND re-solve individual
             # stall-escaped lanes at strict tolerance

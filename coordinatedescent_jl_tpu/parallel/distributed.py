@@ -2,15 +2,15 @@
 
 The reference is a single-process library with no IO layer (SURVEY.md
 §2.5, §5.8).  This module is the runtime glue for running the
-feature-sharded solvers (sharded_cd.py) across a pod slice:
+feature-sharded solvers (sharded_cd.py) across hosts and devices:
 
 - ``initialize_distributed``   — ``jax.distributed`` bring-up (one call per
   host; coordinates via the standard JAX coordinator address env / args).
 - ``feature_mesh`` / ``grid_mesh`` — canonical mesh constructors for the
   ``('feature',)`` and ``('batch', 'feature')`` topologies used by the
-  solvers, laying the feature axis over the fastest (ICI-contiguous)
-  device dimension so the per-pass residual psum rides ICI, not DCN
-  (SURVEY.md §5.8).
+  solvers.  The mesh is a flat device list: on a host whose devices are
+  joined all to all (NVLink) every device order is equally fast, so only
+  the algorithm shapes the mesh (SURVEY.md §5.8).
 - ``shard_design_matrix``      — place an (n, p) design matrix column-
   sharded on a mesh without materializing a replicated copy per device:
   each host hands over only its own column block (from memory, or memory-
@@ -35,9 +35,11 @@ def initialize_distributed(coordinator_address: Optional[str] = None,
                            process_id: Optional[int] = None) -> None:
     """Bring up ``jax.distributed`` for a multi-host run.
 
-    With no arguments, relies on the standard cluster auto-detection
-    (TPU pod metadata / ``JAX_COORDINATOR_ADDRESS`` etc.).  Safe to call
-    once per process before any device computation.
+    With no arguments, relies on JAX's cluster auto-detection (e.g.
+    ``JAX_COORDINATOR_ADDRESS`` or a supported scheduler); where nothing
+    describes the cluster, pass all three arguments
+    (``coordinator_address="localhost:<port>"`` on one host).  Safe to
+    call once per process before any device computation.
     """
     jax.distributed.initialize(
         coordinator_address=coordinator_address,
@@ -47,18 +49,18 @@ def initialize_distributed(coordinator_address: Optional[str] = None,
 
 
 def feature_mesh(devices=None) -> Mesh:
-    """1-D ``('feature',)`` mesh over all (global) devices, ordered so the
-    feature axis is ICI-contiguous."""
+    """1-D ``('feature',)`` mesh over all (global) devices, in
+    ``jax.devices()`` order."""
     devices = np.asarray(devices if devices is not None else jax.devices())
     return Mesh(devices, ("feature",))
 
 
 def grid_mesh(batch: int, devices=None) -> Mesh:
     """2-D ``('batch', 'feature')`` mesh: scenario batches on the outer
-    (slower, possibly-DCN) axis, feature sharding on the inner
-    (ICI-contiguous) axis — the residual psum per block iteration stays
-    on ICI while independent λ/z₀/bandwidth scenarios only ever
-    communicate at result-gather time."""
+    axis, feature sharding on the inner axis — the residual psum per
+    block iteration stays within one feature group (one host when the
+    devices are listed host by host) while independent λ/z₀/bandwidth
+    scenarios only ever communicate at result-gather time."""
     devices = np.asarray(devices if devices is not None else jax.devices())
     if devices.size % batch:
         raise ValueError(f"{devices.size} devices not divisible by "

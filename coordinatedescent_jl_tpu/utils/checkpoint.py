@@ -43,7 +43,7 @@ from ..utils.options import CDOptions, resolve_extrapolate
 
 class ShardedPathCheckpoint(NamedTuple):
     """Resumable state of a *feature-sharded* λ-path solve (SURVEY.md §5.4
-    at pod scale).  The solver state is gathered to host as global arrays
+    across devices).  The solver state is gathered to host as global arrays
     (β, residuals, the cached KKT gradient ``c``/``drift``, the active
     mask) plus the **per-shard** compaction working sets — ``ws_idx`` holds
     each shard's shard-local column indices, so a resume is tied to the
@@ -366,7 +366,7 @@ def lasso_path_resumable_sharded(X, y, lam_path, checkpoint_file: str,
                                  axis: str = "feature", seed: int = 0,
                                  checkpoint_every: int = 1) -> LassoPath:
     """Feature-sharded warm-started Lasso path with per-point
-    checkpointing — the pod-scale restart story (SURVEY.md §5.4 applied to
+    checkpointing — the multi-device restart story (SURVEY.md §5.4 applied to
     §5.7's long-axis scaling; the reference's serial loop is
     lasso.jl:250-252).  Point for point this mirrors
     ``parallel.lasso_path_sharded``'s scan body (same secant warm-start

@@ -7,8 +7,8 @@ Mirrors the reference's option structs (semantic API parity):
 
 Both are frozen (hashable) dataclasses so they can be passed as static
 arguments to ``jax.jit``.  ``block_size`` is new: it controls the width of the
-TPU block-coordinate updates (lane-width multiples are best); it has no effect
-on the solution, only on how work maps to hardware.
+block-coordinate updates (multiples of 128 map best onto the hardware); it has
+no effect on the solution, only on how work maps to hardware.
 """
 
 from __future__ import annotations
@@ -36,12 +36,7 @@ class CDOptions:
       (reference ``src/coordinate_descent.jl:20-38``).
     - ``num_steps``: number of λ-continuation segments (path has
       ``num_steps + 1`` points).
-    - ``block_size``: TPU block width for block-coordinate updates (new).
-    - ``use_pallas``: use the fused Pallas active-pass kernel
-      (ops/pallas_block.py) for the ls/wls losses.  ``None`` (default) =
-      auto: on when compiling for TPU and the block buffers fit VMEM.
-      ``True`` forces it (interpret mode off-TPU — slow, test-only);
-      ``False`` forces the pure-XLA path.  No effect on solutions (new).
+    - ``block_size``: block width for block-coordinate updates (new).
     - ``stall_patience``: stop a λ-solve early if the certified full-check
       ``maxH`` has not improved at all for this many consecutive full
       checks (active-pass maxH is trajectory noise and is not counted) —
@@ -50,12 +45,13 @@ class CDOptions:
       reference, always float64, has no equivalent; its loops burn
       ``max_iter``).  Only active for sub-float64 dtypes — float64 runs
       keep pure reference semantics (new).
-    - ``inner``: within-block solver for the fused Pallas pass.
+    - ``inner``: within-block solver of the active pass.
       ``'exact'`` = sequential Gauss-Seidel scan (reference-exact
-      trajectory); ``'ista'`` = vectorized inexact block solve (MXU
-      matvecs — ~25× faster per pass, same converged solution, certified
-      by the KKT sweep); ``'auto'`` (default) = ista for sub-f64 dtypes on
-      the ls/wls losses, exact otherwise (new).
+      trajectory, ``B`` dependent steps per block); ``'ista'`` =
+      vectorized inexact block solve (``block_iters`` ``B×B`` matvecs —
+      same converged solution, certified by the KKT sweep); ``'auto'``
+      (default) = ista for sub-f64 dtypes on the ls/wls/sqrt losses, exact
+      otherwise (new).
     - ``block_iters``: ISTA iterations per block visit for
       ``inner='ista'`` (new).
     - ``screen``: gap-safe screening of the KKT sweeps for the
@@ -69,8 +65,8 @@ class CDOptions:
       ``compact_size`` highest-priority coordinates (support + largest
       KKT violations) into a dense ``(n, C)`` subproblem, solves it with
       the normal engine, and repeats until the full KKT check passes —
-      so per-pass HBM traffic scales with the support, not with how it is
-      scattered.  ``None`` (default) = auto: on for sub-float64 dtypes on
+      so per-pass memory traffic scales with the support, not with how it
+      is scattered.  ``None`` (default) = auto: on for sub-float64 dtypes on
       the regression losses when ``p`` is much larger than
       ``compact_size`` (float64 runs keep exact reference trajectories);
       ``True``/``False`` force.  Solutions are unchanged: convergence is
@@ -83,9 +79,9 @@ class CDOptions:
     - ``cache_gram``: precompute every block's Gram matrix
       ``K_b = Xw_b' X_b`` once per problem build and stream the cached
       ``B×B`` tiles into the passes instead of recomputing them each block
-      visit.  The Gram recursion makes ``K`` half the FLOPs of a visit
-      (2·n·B² vs the 2·n·B reads), so cached Grams turn the pass from
-      MXU-bound into the HBM-bound streaming kernel it is designed to be.
+      visit.  The Gram recursion makes ``K`` most of the FLOPs of a visit
+      (2·n·B² vs the 2·n·B reads), so cached Grams leave the pass bound by
+      streaming the block once, as it is designed to be.
       ``K`` depends only on ``X`` (λ- and σ-independent), so one build
       serves the whole λ-path / outer σ loop.  ``None`` (default) = auto:
       on for the regression losses when the cache is ≤ 256 MiB
@@ -100,21 +96,10 @@ class CDOptions:
       cached columns) except on the z-grid, where the residual is rebuilt
       per point anyway.  Solutions are unchanged — every solve is still
       certified by the full KKT sweep.  ``None`` (default) = auto:
-      per-consumer defaults from on-chip A/B measurement — OFF along
-      dense λ paths (warm starts there are already near-exact and the
-      shift work costs ~30% wall time, PERF.md round 3), ON on the
-      locpolyl1 z-grid (0.62 s vs 0.83 s at the bench config) and the
-      scaled-lasso σ rounds (neutral-to-positive).  ``True``/``False``
-      force (new).
-    - ``fuse_check``: fused-kernel execution of the ls/wls KKT full check
-      (ops/pallas_check.py).  The plain check's screening/certification/
-      noise-floor math is ~100 tiny ``(nb, B)`` ops of pure dispatch
-      latency — over half the sequential λ-path floor (PERF.md round 5);
-      one single-grid-step Pallas kernel evaluates the whole no-refresh
-      check at once.  Formula-identical to the plain path (both call the
-      same raw-array cores).  ``None`` (default) = auto: on whenever the
-      Pallas tier is on (TPU, f32, check operands fit VMEM); ``False``
-      forces the plain XLA check (new).
+      per-consumer defaults — OFF along dense λ paths (warm starts there
+      are already near-exact, so the shift work only adds time), ON on
+      the locpolyl1 z-grid and the scaled-lasso σ rounds.
+      ``True``/``False`` force (new).
     """
 
     max_iter: int = 2000
@@ -123,7 +108,6 @@ class CDOptions:
     warm_start: bool = True
     num_steps: int = 50
     block_size: int = 128
-    use_pallas: bool | None = None
     stall_patience: int = 20
     inner: str = "auto"
     block_iters: int = 16
@@ -133,7 +117,6 @@ class CDOptions:
     compact_rounds: int = 32
     cache_gram: bool | None = None
     extrapolate: bool | None = None
-    fuse_check: bool | None = None
 
     def replace(self, **kw) -> "CDOptions":
         return dataclasses.replace(self, **kw)
@@ -143,7 +126,7 @@ def resolve_extrapolate(options: "CDOptions", consumer_default: bool) -> bool:
     """Resolve the tri-state ``extrapolate`` flag: an explicit user
     ``True``/``False`` wins; ``None`` takes the consumer's measured
     default (ON for z-grid / σ-round / λ-continuation schedules, OFF for
-    dense λ paths — see the field doc and PERF.md round 3)."""
+    dense λ paths — see the field doc)."""
     return (consumer_default if options.extrapolate is None
             else options.extrapolate)
 

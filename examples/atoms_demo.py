@@ -3,7 +3,7 @@
 The reference driver accepts three iterate kinds
 (coordinate_descent.jl:8): plain sparse vectors, ``AtomIterate`` group
 atoms, and ``SymmetricSparseIterate`` packed symmetric matrices.  This
-demo exercises the TPU-native analogues of the latter two:
+demo exercises the blocked analogues of the latter two:
 
     python examples/atoms_demo.py
 """

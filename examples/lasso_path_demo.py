@@ -1,6 +1,6 @@
 """End-to-end demo: Lasso regularization path with diagnostics.
 
-Runs on whatever backend JAX selects (TPU if available, else CPU).
+Runs on whatever backend JAX selects (a GPU if available, else CPU).
 
     python examples/lasso_path_demo.py
 """

@@ -1,11 +1,12 @@
 """End-to-end demo: feature-sharded solvers on a device mesh.
 
-Works on real multi-chip hardware or on a simulated CPU mesh:
+Works on several GPUs of one host or on a simulated CPU mesh:
 
+    python examples/multichip_demo.py                   # every visible GPU
     XLA_FLAGS=--xla_force_host_platform_device_count=8 JAX_PLATFORMS=cpu \
-        python examples/multichip_demo.py
+        python examples/multichip_demo.py               # 8 virtual CPUs
 
-On a multi-host pod, call ``cd.parallel.initialize_distributed()`` first
+Across several hosts, call ``cd.parallel.initialize_distributed()`` first
 and feed each host's column block through
 ``cd.parallel.shard_design_matrix`` (see that docstring).
 """
@@ -32,7 +33,6 @@ from coordinatedescent_jl_tpu.parallel import (
 
 
 def main():
-    jax.config.update("jax_platforms", "cpu")  # demo default; remove on TPU
     rng = np.random.default_rng(0)
     n, p, s = 500, 2000, 20
     X = rng.standard_normal((n, p))
@@ -83,7 +83,7 @@ def main():
     print(f"sharded feasible lasso: nnz="
           f"{int(np.sum(np.asarray(fs.x) != 0))}")
 
-    # pod-scale checkpoint/resume of a warm path (trajectory-identical)
+    # sharded checkpoint/resume of a warm path (trajectory-identical)
     import tempfile
 
     with tempfile.TemporaryDirectory() as td:

@@ -10,7 +10,7 @@ Four patterns a deployment actually needs on top of the estimator APIs:
    dense-support low-λ path scan is a single multi-minute program);
 4. checkpoint / resume of an interrupted path (``lasso_path_resumable``).
 
-Runs on whatever backend JAX selects (TPU if available, else CPU):
+Runs on whatever backend JAX selects (a GPU if available, else CPU):
 
     python examples/production_recipes.py          # default backend
     python examples/production_recipes.py --cpu    # force CPU
@@ -27,7 +27,6 @@ import numpy as np
 import jax
 
 if "--cpu" in sys.argv:
-    # env JAX_PLATFORMS is not enough when a TPU plugin is registered;
     # the config update must land before the first backend touch
     jax.config.update("jax_platforms", "cpu")
 import jax.numpy as jnp

@@ -2,7 +2,7 @@
 
 Independent re-derivations of the reference algorithms' math (SURVEY.md §4
 pattern 2: cross-implementation equivalence).  Deliberately simple and
-sequential — these define "ground truth" solutions that the TPU block engine
+sequential — these define "ground truth" solutions that the block engine
 must match.
 """
 

@@ -1,8 +1,9 @@
 """Diagnostics precision tests.
 
 The KKT bounds the reference's tests enforce (test/lasso.jl:54, 97-98, 123)
-are only meaningful if the certificate itself is computed accurately: on TPU
-the default f32 matmul precision lowers to bf16 (~1e-3 relative error) —
+are only meaningful if the certificate itself is computed accurately: an
+accelerator's default f32 matmul precision may round to TF32 or bf16 (~1e-3
+relative error) —
 exactly the failure mode these checks exist to rule out.  Two layers of
 testing:
 
@@ -10,7 +11,8 @@ testing:
    recomputation on small shapes;
 2. static: every ``dot_general`` in the lowered jaxprs of the public
    diagnostics (and ``losses.gradient`` / ``losses.value``) carries
-   ``Precision.HIGHEST``, so the f32 TPU path cannot silently lower to bf16.
+   ``Precision.HIGHEST``, so the f32 device path cannot silently lose
+   precision.
 """
 
 import numpy as np

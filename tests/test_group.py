@@ -301,7 +301,7 @@ def _group_sqrt_kkt(X, y, beta, lam, G, w=None):
 
 @pytest.mark.parametrize("G", [4, 6])
 def test_group_sqrt_matches_oracle(G):
-    """Group atoms × sqrt loss (VERDICT r3 item 8 — the last cell of the
+    """Group atoms × sqrt loss (the last cell of the
     reference driver's loss×iterate acceptance matrix,
     coordinate_descent.jl:8): the MM engine must match an independent
     NumPy MM oracle and satisfy the sqrt group-KKT conditions."""

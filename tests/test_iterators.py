@@ -1,29 +1,18 @@
 """Iterator-semantics tests (reference test/atom_iterator.jl:11-85).
 
 The reference pins visitation-order behavior of its ordered / random /
-sparse-aware iterators directly.  The TPU re-design's analogue is the
-active-first scalar-prefetch order of the fused pass: active blocks are
-visited first (preserving the — possibly permuted — visit order), and the
-skipped tail is clamped to the last active block so the Pallas pipeline
-re-uses the resident buffer and spends no HBM bandwidth on skipped steps.
-These tests pin that contract directly, plus the no-op / coverage edge
-cases the reference covers for its iterators.
+sparse-aware iterators directly.  The block engine's analogue is the
+active-first visit order of the active pass: active blocks are visited
+first (preserving the — possibly permuted — visit order), the pass loops
+over those alone, and the skipped blocks trail in visit order.  These
+tests pin that contract directly, plus the no-op / coverage edge cases
+the reference covers for its iterators.
 """
 
 import numpy as np
-import jax
 import jax.numpy as jnp
 
-import coordinatedescent_jl_tpu as cd
-from coordinatedescent_jl_tpu.ops.block_cd import (
-    _init_state,
-    _to_blocked_beta,
-    build_blocked,
-)
-from coordinatedescent_jl_tpu.ops.pallas_block import (
-    _prefetch_order,
-    fused_active_pass,
-)
+from coordinatedescent_jl_tpu.ops.block_cd import _active_first_order
 
 
 def test_prefetch_order_active_first_in_visit_order():
@@ -32,7 +21,7 @@ def test_prefetch_order_active_first_in_visit_order():
     to block granularity)."""
     active = jnp.asarray([True, False, True, True, False, False, True])
     border = jnp.arange(7)
-    order, n_active = _prefetch_order(active, border)
+    order, n_active = _active_first_order(active, border)
     assert int(n_active) == 4
     np.testing.assert_array_equal(np.asarray(order[:4]), [0, 2, 3, 6])
 
@@ -46,8 +35,8 @@ def test_prefetch_order_respects_permutation():
         nb = 16
         active_np = rng.random(nb) < 0.4
         border_np = rng.permutation(nb)
-        order, n_active = _prefetch_order(jnp.asarray(active_np),
-                                          jnp.asarray(border_np))
+        order, n_active = _active_first_order(jnp.asarray(active_np),
+                                              jnp.asarray(border_np))
         k = int(n_active)
         assert k == int(active_np.sum())
         got = np.asarray(order[:k])
@@ -56,48 +45,19 @@ def test_prefetch_order_respects_permutation():
 
 
 def test_prefetch_order_tail_clamped_to_last_active():
-    """Steps past n_active repeat the last active block: consecutive equal
-    pipeline indices re-use the resident buffer — the 'skip without HBM
-    traffic' half of the contract."""
+    """Positions past n_active hold the skipped blocks in visit order; the
+    pass never reaches them (its trip count is n_active) — the 'skip
+    without touching X' half of the contract."""
     active = jnp.asarray([False, True, False, True, False, False])
     border = jnp.arange(6)
-    order, n_active = _prefetch_order(active, border)
+    order, n_active = _active_first_order(active, border)
     assert int(n_active) == 2
-    np.testing.assert_array_equal(np.asarray(order), [1, 3, 3, 3, 3, 3])
+    np.testing.assert_array_equal(np.asarray(order), [1, 3, 0, 2, 4, 5])
 
 
 def test_prefetch_order_no_active_blocks():
     active = jnp.zeros((5,), bool)
-    order, n_active = _prefetch_order(active, jnp.arange(5))
+    order, n_active = _active_first_order(active, jnp.arange(5))
     assert int(n_active) == 0
-    # all steps clamp to one block; the kernel predicates every step off
-    assert len(np.unique(np.asarray(order))) == 1
-
-
-def test_fused_pass_touches_only_active_blocks():
-    """Inactive blocks' coordinates are bit-identical after a pass, active
-    blocks' coordinates may move (reference sparse-iterate semantics: only
-    nonzero atoms are visited, atom_iterator.jl:57-75)."""
-    rng = np.random.default_rng(3)
-    n, p, B = 64, 96, 16
-    X = jnp.asarray(rng.standard_normal((n, p)), jnp.float32)
-    y = jnp.asarray(rng.standard_normal(n), jnp.float32)
-    opts = cd.CDOptions(block_size=B)
-    prob = build_blocked("ls", opts, jnp.ones((p,), jnp.float32), X=X, y=y)
-    nb = p // B
-    beta0 = rng.standard_normal(p).astype(np.float32)
-    beta_b = _to_blocked_beta(jnp.asarray(beta0), B)
-    st = _init_state("ls", prob, beta_b, jax.random.PRNGKey(0))
-    active = jnp.asarray([True, False, True, False, True, False])
-    nsc = jnp.asarray(float(n), jnp.float32)
-    beta2, r2, maxh, _ = fused_active_pass(
-        prob, st.beta, st.r, active, jnp.asarray(0.05, jnp.float32), nsc,
-        jnp.arange(nb), jnp.arange(B), kind="ls", interpret=True)
-    b2 = np.asarray(beta2)
-    b0 = np.asarray(beta_b)
-    for b in range(nb):
-        if bool(active[b]):
-            assert not np.array_equal(b2[b], b0[b]), f"block {b} unmoved"
-        else:
-            np.testing.assert_array_equal(b2[b], b0[b],
-                                          err_msg=f"block {b} touched")
+    # nothing to visit: the order is the plain visit order, never entered
+    np.testing.assert_array_equal(np.asarray(order), np.arange(5))

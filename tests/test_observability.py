@@ -1,5 +1,6 @@
 """Checkpoint/resume + convergence-trace + NaN-mode tests (SURVEY.md §5)."""
 
+import jax
 import numpy as np
 import jax.numpy as jnp
 import pytest
@@ -102,7 +103,7 @@ def test_solve_with_trace_converges_and_logs():
 
 
 def test_solve_with_trace_sqrt():
-    """Per-epoch trace for the sqrt-lasso (VERDICT r2 weak 6): must match
+    """Per-epoch trace for the sqrt-lasso: must match
     the production sqrt_lasso solve and certify the scale-free KKT
     conditions max(|X_j'r|/‖r‖ − λ, 0) → 0."""
     X, y = _gen(150, 64, 6, seed=5)
@@ -132,7 +133,7 @@ def test_solve_with_trace_wls():
 
 
 def test_scaled_lasso_with_trace():
-    """Per-σ-round trace (VERDICT r2 weak 6): matches scaled_lasso, the
+    """Per-σ-round trace: matches scaled_lasso, the
     recorded rel_change hits the stop tolerance, λ_eff = λ·σ per round."""
     X, y = _gen(200, 80, 6, seed=8)
     lam = float(np.sqrt(2 * np.log(80) / 200))
@@ -287,15 +288,16 @@ def test_measured_peak_hbm_sane():
 
 
 def test_pass_roofline_multi_shares_build(monkeypatch):
-    # tiny shapes, interpret-mode Pallas on CPU: the multi variant must
-    # return one report per iters configuration off a single build, with
-    # consistent byte accounting and a sane peak denominator.  The real
-    # peak measurement streams a 2 GiB buffer — pointless on CPU, so it
-    # is stubbed (its own path is exercised by
-    # test_measured_peak_hbm_sane)
+    # tiny shapes on CPU: the multi variant must return one report per
+    # iters configuration off a single build, with consistent byte
+    # accounting and a sane peak denominator.  The real peak measurement
+    # streams a 2 GiB buffer — pointless on CPU, so it is stubbed (its
+    # own path is exercised by test_measured_peak_hbm_sane), and the CPU
+    # gets a stand-in published peak (the table holds only real devices)
     from coordinatedescent_jl_tpu.utils import profiling as prof
     monkeypatch.setattr(prof, "measured_peak_hbm",
                         lambda *a, **k: 1e11)
+    monkeypatch.setitem(prof._PEAK_HBM, jax.devices()[0].device_kind, 1e11)
     reps = cd.pass_roofline_multi(128, 256, block_size=16,
                                   iters_list=(4, 1))
     assert len(reps) == 2
@@ -306,3 +308,12 @@ def test_pass_roofline_multi_shares_build(monkeypatch):
     # single-config wrapper agrees structurally
     r1 = cd.pass_roofline(128, 256, block_size=16, iters=2)
     assert r1.bytes_per_pass == reps[0].bytes_per_pass
+
+
+def test_peak_hbm_table():
+    """Published peaks are looked up by ``device_kind``; an unknown device
+    is an error, never a default."""
+    from coordinatedescent_jl_tpu.utils import profiling as prof
+    assert prof.peak_hbm("NVIDIA H100 80GB HBM3") == 3.35e12
+    with pytest.raises(ValueError, match="no published peak"):
+        prof.peak_hbm("cpu")

@@ -2,8 +2,8 @@
 
 Screening must be *exact*: solutions with ``screen=True`` equal solutions
 with ``screen=False`` (it only skips coordinates provably zero at the
-optimum).  Also pins the restricted-sweep kernel semantics and checks the
-rule actually fires (candidate set ≪ p near convergence) while never
+optimum).  Also pins which cached gradients a full check refreshes and
+checks the rule actually fires (candidate set ≪ p near convergence) while never
 discarding a support coordinate.
 """
 
@@ -14,6 +14,7 @@ import pytest
 
 import coordinatedescent_jl_tpu as cd
 from coordinatedescent_jl_tpu.ops.block_cd import (
+    _full_check,
     _gap_safe_candidates,
     _init_state,
     _to_blocked_beta,
@@ -108,26 +109,38 @@ def test_candidates_conservative_with_stale_cache():
     assert cand.all()
 
 
-def test_restricted_sweep_interpret_matches_reference():
-    from coordinatedescent_jl_tpu.ops.pallas_block import (
-        restricted_gradient_sweep,
-    )
+_STALE = {"none": [], "one": [3], "some": [0, 2, 3], "all": range(6)}
 
+
+@pytest.mark.parametrize("kind", ["ls", "wls", "sqrt"])
+@pytest.mark.parametrize("which", sorted(_STALE))
+def test_full_check_refreshes_only_needed_blocks(which, kind):
+    """A full check refreshes the cached gradient of exactly the blocks it
+    cannot certify (here: the stale ones) from the dense blocked einsum,
+    keeps the cached rows and drift of the others, and accounts one whole
+    design read when it refreshes anything, none otherwise."""
     rng = np.random.default_rng(7)
-    nb, n, B = 6, 50, 8
-    Xwb = jnp.asarray(rng.standard_normal((nb, n, B)), jnp.float32)
-    r = jnp.asarray(rng.standard_normal(n), jnp.float32)
-    c_prev = jnp.asarray(rng.standard_normal((nb, B)), jnp.float32)
-    need = jnp.asarray([True, False, True, True, False, False])
-    out = restricted_gradient_sweep(Xwb, r, need, c_prev, interpret=True)
-    want = np.where(np.asarray(need)[:, None],
-                    np.einsum("bnk,n->bk", np.asarray(Xwb), np.asarray(r)),
-                    np.asarray(c_prev))
-    np.testing.assert_allclose(np.asarray(out), want, atol=1e-4)
-    # nothing needed → pure passthrough
-    none = jnp.zeros((nb,), bool)
-    out2 = restricted_gradient_sweep(Xwb, r, none, c_prev, interpret=True)
-    np.testing.assert_allclose(np.asarray(out2), np.asarray(c_prev))
+    n, nb, B = 50, 6, 8
+    X = jnp.asarray(rng.standard_normal((n, nb * B)))
+    y = jnp.asarray(rng.standard_normal(n))
+    w = jnp.asarray(0.3 + rng.random(n)) if kind == "wls" else None
+    prob = build_blocked(kind, cd.CDOptions(block_size=B),
+                         jnp.ones((nb * B,)), X=X, y=y, w=w)
+    need = np.zeros(nb, bool)
+    need[list(_STALE[which])] = True
+    c_prev = rng.standard_normal((nb, B))
+    drift = np.where(need, 1e30, 0.0)
+    st = _init_state(kind, prob, jnp.zeros((nb, B)), jax.random.PRNGKey(0))
+    st = st._replace(c=jnp.asarray(c_prev), drift=jnp.asarray(drift))
+    st2, _, xe = _full_check(kind, prob, st, jnp.asarray(0.1),
+                             jnp.asarray(float(n)), 1e-7, None, count_x=True)
+    want = np.einsum("bnk,n->bk", np.asarray(prob.Xwb), np.asarray(st.r))
+    c2 = np.asarray(st2.c)
+    np.testing.assert_allclose(c2[need], want[need], rtol=1e-12, atol=1e-12)
+    np.testing.assert_array_equal(c2[~need], c_prev[~need])
+    np.testing.assert_array_equal(np.asarray(st2.drift),
+                                  np.where(need, 0.0, drift))
+    assert float(xe) == (n * nb * B if need.any() else 0.0)
 
 
 def test_screening_exact_scaled_lasso():
